@@ -1,16 +1,7 @@
-"""falcon-unzip-tpu: TPU-native diploid unzip + polish framework.
+"""falcon-unzip-tpu: diploid unzip + polish framework on JAX.
 
-Importing the package enables JAX's persistent compilation cache (keyed
-by HLO hash, safe across processes) so the many fixed-shape bucket
-programs of the aligner/overlapper/polisher compile once per machine,
-not once per run.  The reference's analogue is pypeFLOW's "outputs
-already exist → skip task" resume semantics applied to compiled code.
-
-Opt out with FALCON_UNZIP_TPU_NO_CACHE=1; override the location with
-FALCON_UNZIP_TPU_CACHE_DIR.
+Phases and polishes a FALCON-style draft assembly (the FALCON_unzip
+capabilities) with the alignment, phasing and consensus kernels on an
+accelerator: an NVIDIA GPU, with the CPU as the test platform.
 """
 __version__ = "0.1.0"
-
-from .utils.compile_cache import enable as _enable_compile_cache
-
-_enable_compile_cache()

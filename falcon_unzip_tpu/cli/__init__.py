@@ -24,8 +24,9 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="falcon-unzip-tpu",
-        description="TPU-native phased diploid assembly engine "
-                    "(FALCON_unzip capabilities, jax/XLA/Pallas compute)")
+        description="Phased diploid assembly engine "
+                    "(FALCON_unzip capabilities, JAX/XLA compute with a "
+                    "CUDA banded-alignment kernel on the GPU)")
     ap.add_argument("-v", "--verbose", action="store_true")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("track", help="map reads onto contigs (read2ctg)")
     p.add_argument("--reads", required=True)
     p.add_argument("--contigs", required=True)
-    p.add_argument("--out", default="read_to_contig_map.msgpack")
+    p.add_argument("--out", default="read_to_contig_map.json")
 
     p = sub.add_parser("dedup", help="drop h_ctgs duplicating their primary")
     p.add_argument("--p-ctg", required=True)
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
         "select-reads", help="partition a BAM into per-contig BAMs")
     p.add_argument("--bam", required=True)
     p.add_argument("--map", required=True,
-                   help="msgpack/json read->contig map (names or ids)")
+                   help="JSON read->contig map (names or ids)")
     p.add_argument("--reads", help="FASTA giving names for integer read ids")
     p.add_argument("--out-pattern", default="ctg_{}.bam")
 
@@ -92,6 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from ..utils.compile_cache import enable as enable_compile_cache
+    enable_compile_cache()
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")

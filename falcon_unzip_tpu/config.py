@@ -90,7 +90,6 @@ class PolishCfg:
     hmm_band: int = 48
     score_batch: int = 8192      # legacy re-forward pairs per dispatch
     splice_chunk: int = 512      # (read, window) pairs per splice dispatch
-    use_pallas: bool = True      # TPU path for the HMM scorer (auto)
     qv_aware: bool = False       # per-read base-quality HMM tier: reads
                                  # with a FASTQ/BAM quality track get
                                  # emission/transition params scaled to
@@ -113,7 +112,7 @@ class MeshCfg:
     debug_sharding: bool = False
     # multi-host (jax.distributed) execution: when true the drivers call
     # parallel.distributed.initialize() (coordinator/process env vars or
-    # TPU pod metadata), host-shard the aligner/overlapper input, run the
+    # cluster auto-detection), host-shard the aligner/overlapper input, run the
     # sharded device steps over the GLOBAL mesh, and emit canonical
     # artifacts from host 0 only (other hosts write .host<k>/ scratch).
     multihost: bool = False

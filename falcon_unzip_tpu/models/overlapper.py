@@ -16,7 +16,6 @@ the match):
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
@@ -240,11 +239,11 @@ class PreadOverlapper:
                 a_start=z32, a_end=z32, b_start=z32, b_end=z32,
                 a_len=z32, b_len=z32, dist=z32)
 
-        # ---- shape buckets (vectorized ladder, == scalar _q_bucket) --
-        from .aligner import _gather_rows, _q_bucket_vec
-        bq = _q_bucket_vec(ov, aligner.use_pallas)
+        # ---- shape buckets (vectorized ladder, == scalar _bucket) ----
+        from .aligner import _bucket_vec, _gather_rows
+        bq = _bucket_vec(ov)
         bt = bq + 512 * np.maximum(
-            1, -(-np.maximum(t_len - bq, 1) // 512))      # _t_bucket
+            1, -(-np.maximum(t_len - bq, 1) // 512))      # _t_bucket, step 512
         # job order within a bucket follows candidate order (stable sort)
         key = bq * (1 << 32) + bt
         order = np.argsort(key, kind="stable")
@@ -258,13 +257,10 @@ class PreadOverlapper:
         t_src = offs[b] + t_lo + np.where(strand == 1, len(fwd), 0)
 
         # ---- chunked dispatch with vectorized packing ----------------
-        # In-flight chunks hold their packed input buffers alive until
-        # collected; unbounded two-phase async OOM-killed the 40 Mb
-        # config-5 run (~20k chunks x ~3 MB on top of an 80 GB resident
-        # set).  A bounded window keeps dispatch/fetch overlapped while
-        # capping that memory; each drain is still one concatenated RPC.
-        max_inflight = int(os.environ.get(
-            "FALCON_UNZIP_TPU_MAX_INFLIGHT", "1024"))
+        # In-flight chunks hold their buffers alive until collected, so
+        # the window is bounded by device memory
+        # (BandedAligner.max_inflight) while dispatch and fetch still
+        # overlap; each drain is one concatenated device-to-host copy.
         pending = []  # (idx, n_real, handle)
         meta = []     # (idx, n_real) in dispatch order, across drains
         parts = []    # per-drain summary dicts
@@ -283,22 +279,19 @@ class PreadOverlapper:
             pending.clear()
 
         bounds = np.nonzero(np.diff(key[order]))[0] + 1
-        from ..ops.banded_align import pallas_chunk_pairs
+        chunk_pairs = cfg.batch_pairs
         for grp in np.split(order, bounds):
             if not len(grp):      # nj == 0: np.split yields one empty group
                 continue
             gbq, gbt = int(bq[grp[0]]), int(bt[grp[0]])
-            # pinned per-bucket chunk on the Pallas path (one kernel
-            # shape per bucket — see ops.banded_align.pallas_chunk_pairs)
-            chunk_pairs = (pallas_chunk_pairs(gbq) if aligner.use_pallas
-                           else cfg.batch_pairs)
+            max_inflight = aligner.max_inflight(chunk_pairs, gbq, gbt)
             for s in range(0, len(grp), chunk_pairs):
                 idx = grp[s : s + chunk_pairs]
                 n_real = len(idx)
                 if n_real < chunk_pairs and s > 0:
                     # pad the tail chunk to the full batch (repeat last
                     # job, results discarded): one device shape per
-                    # bucket, ONE serialized remote kernel compile
+                    # bucket, one compile
                     idx = np.concatenate(
                         [idx, np.full(chunk_pairs - n_real, idx[-1])])
                 P = len(idx)
@@ -315,8 +308,7 @@ class PreadOverlapper:
                     _drain()
         # the moves strings are reduced ON DEVICE to a 7-int summary per
         # pair (ops.banded_align._summarize_moves) and each drain window
-        # is fetched in one concatenated RPC: both the packed-moves
-        # payload and the per-chunk fetch latency were wall-clock terms
+        # is fetched in one concatenated copy
         _drain()
         tm["fetch_s"] = round(tm["fetch_s"], 2)
         allres = ({k: np.concatenate([p[k] for p in parts])
@@ -368,15 +360,3 @@ class PreadOverlapper:
         tm["n_overlaps"] = len(out)
         self.timings = tm
         return out
-
-
-def _bucket(n: int, minimum: int = 256) -> int:
-    b = minimum
-    while b < n:
-        b *= 2
-    return b
-
-
-def _t_bucket(t_len: int, bq: int, step: int = 512) -> int:
-    """See models.aligner._t_bucket: one kernel shape per query bucket."""
-    return bq + step * max(1, -(-max(t_len - bq, 1) // step))

@@ -27,8 +27,8 @@ from .aligner import AlnSet
 
 def _round128(x: int) -> int:
     # quantized to 512 (not 128): scoring-batch shapes stay constant
-    # across refinement rounds/windows, so the Pallas pair-HMM compiles
-    # once per polish run instead of per max-segment-length drift
+    # across refinement rounds/windows, so the pair-HMM compiles once
+    # per polish run instead of per max-segment-length drift
     return max(512, -(-x // 512) * 512)
 
 
@@ -76,7 +76,6 @@ class PolisherConfig:
                                  # fraction gate and mask a real error
                                  # from mutation testing
     hmm_band: int = 48
-    use_pallas: bool | None = None   # None = auto (TPU + aligned band)
     score_batch: int = 8192          # max (variant, read) pairs per dispatch
                                      # (legacy re-forward path only)
     splice_chunk: int = 512          # (read, template) pairs per splice

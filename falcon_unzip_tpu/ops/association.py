@@ -1,11 +1,11 @@
-"""Device SNP-pair association + read phase votes (scan + MXU matmuls).
+"""Device SNP-pair association + read phase votes (scan + matmuls).
 
 Role parity: [U] falcon_unzip/phasing.py::generate_association_table and
 get_phased_reads (SURVEY.md §3.2 steps 2 & 4).  Re-design: the pairwise
 co-occurrence table is BANDED (site pairs within max_span) and computed as
 a lax.scan of shifted elementwise products — one (n_reads, n_sites)
 multiply-reduce per offset; the per-read block votes are two matmuls
-against a block one-hot, which ride the MXU.
+against a block one-hot.
 
 Determinism: integer arithmetic throughout; matches oracle.phasing
 bit-for-bit.
@@ -69,7 +69,7 @@ def read_block_votes_batch(M, block_onehot, sgn):
     """Batched per-read block votes: (G, R, S) x (G, S, B) -> (G, R, B).
 
     Same exact-integer-in-f32 matmul semantics as read_block_votes, with
-    a leading contig-group axis (one MXU batched matmul per group).
+    a leading contig-group axis (one batched matmul per group).
     """
     Mf = M.astype(jnp.float32)
     oh = block_onehot.astype(jnp.float32)
@@ -82,7 +82,7 @@ def read_block_votes_batch(M, block_onehot, sgn):
 
 @jax.jit
 def read_block_votes(M, block_onehot, sgn):
-    """Per-read per-block vote and coverage via MXU matmuls.
+    """Per-read per-block vote and coverage via matmuls.
 
     M: (n_reads, n_sites) int8;  block_onehot: (n_sites, n_blocks) int8
     (1 where site belongs to block);  sgn: (n_sites,) int32 in {-1,+1}

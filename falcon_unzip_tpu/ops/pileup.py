@@ -108,8 +108,8 @@ def pileup_host(pos: np.ndarray, base: np.ndarray,
     """Host pileup (np.bincount), == pileup_scatter bit-for-bit.
 
     The device scatter is the production path; Mb-scale contigs carry
-    hundreds of millions of flat tags, and shipping them through the
-    relay costs more than the bincount — the host path keeps pileup
+    hundreds of millions of flat tags, and shipping them to the device
+    costs more than the bincount — the host path keeps pileup
     O(tags) local and feeds the same integer counts downstream.
     """
     ok = (pos >= 0) & (pos < t_len)

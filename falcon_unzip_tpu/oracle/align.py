@@ -5,7 +5,7 @@ This module is the executable SPEC for the device kernels in
 
 - ``edit_dp_full``       : full O(nm) edit-distance DP (ground truth)
 - ``banded_dp``          : the exact banded antidiagonal-wavefront recurrence
-                           the TPU kernel implements (slope-1/2 band,
+                           the device kernels implement (slope-1/2 band,
                            data-independent shift schedule)
 - ``traceback_*``        : deterministic tie-broken traceback -> moves
 - ``moves_to_tags``      : falcon_sense-style (t_pos, delta, base) align tags

@@ -7,7 +7,7 @@ Role parity (SURVEY.md §2c):
   halo exchange over the contig-window ("sequence") axis.
 
 Both are shard_map programs over the ('data', 'window') mesh from
-parallel.mesh; XLA lowers them to ICI/DCN collectives.
+parallel.mesh; XLA lowers them to NCCL collectives.
 """
 from __future__ import annotations
 

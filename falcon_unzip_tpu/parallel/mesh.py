@@ -11,7 +11,9 @@ Here the equivalents are explicit jax.sharding meshes:
                   windowing)
 
 Multi-host: the same mesh spans hosts via jax.distributed.initialize();
-collectives ride ICI within a slice and DCN across slices.
+XLA hands the collectives to NCCL: NVLink between the cards of a host
+(all to all, so the mesh follows the algorithm, not a physical torus),
+the network across hosts.
 """
 from __future__ import annotations
 

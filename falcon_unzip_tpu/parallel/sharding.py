@@ -12,7 +12,7 @@ it with SPMD device programs over a ('data', 'window') mesh
   devices (the contig-window axis analogue); log-likelihoods stay sharded
   for the host gather.
 
-Both are shard_map programs — XLA inserts the ICI/DCN collectives.
+Both are shard_map programs — XLA inserts the (NCCL) collectives.
 """
 from __future__ import annotations
 
@@ -281,8 +281,8 @@ class ShardedPhaseOps:
 class ShardedPairHMMScorer:
     """Drop-in PairHMMScorer that splits scoring pairs across the mesh.
 
-    Same (q, t, n, m) -> ll interface as ops.pairhmm.PairHMMScorer /
-    ops.pallas_pairhmm.PallasPairHMMScorer; the pair axis is sharded over
+    Same (q, t, n, m) -> ll interface as ops.pairhmm.PairHMMScorer;
+    the pair axis is sharded over
     ('data','window') and each device runs the banded forward on its
     shard (the polish stage's multi-chip path, SURVEY.md §2c).
     """

@@ -9,7 +9,7 @@ and each contig is polished with the windowed vote + pair-HMM stage.
 Outputs (under <out>/4-polish/):
   cns_p_ctg.fasta / cns_p_ctg.fastq
   cns_h_ctg.fasta / cns_h_ctg.fastq
-  read_to_contig_map.msgpack
+  read_to_contig_map.json
 """
 from __future__ import annotations
 
@@ -31,8 +31,6 @@ logger = logging.getLogger(__name__)
 
 
 def run_quiver(cfg: PipelineConfig) -> dict:
-    from ..utils.compile_cache import enable as enable_compile_cache
-    enable_compile_cache()
     if cfg.profile_dir:  # jax.profiler device trace around the whole run
         from ..utils.profiling import device_trace
         with device_trace(cfg.profile_dir):
@@ -103,10 +101,10 @@ def _run_quiver(cfg: PipelineConfig) -> dict:
         if "a" not in _aln:
             import time as _time
             if not multi:
-                blob = os.path.join(out, "1-track", "aln_set.msgpack")
+                blob = os.path.join(out, "1-track", "aln_set.npz")
                 probe = Stage(out, "1-track",
                               inputs=[reads_path, p_path, h_path],
-                              outputs=["read_to_contig_map.msgpack"],
+                              outputs=["read_to_contig_map.json"],
                               resume=cfg.resume)
                 if cfg.resume and probe.is_done() \
                         and os.path.exists(blob):
@@ -144,7 +142,7 @@ def _run_quiver(cfg: PipelineConfig) -> dict:
 
     # ---- stage 1: track reads -> combined reference (rr_hctg_track role)
     track_stage = Stage(out, "1-track", inputs=[reads_path, p_path, h_path],
-                        outputs=["read_to_contig_map.msgpack"],
+                        outputs=["read_to_contig_map.json"],
                         resume=cfg.resume, sync=sync)
 
     def _track(st: Stage):
@@ -159,12 +157,12 @@ def _run_quiver(cfg: PipelineConfig) -> dict:
             order = np.argsort(rid, kind="stable")
             rid, ctg = rid[order], ctg[order]
         r2c = {int(rid[a]): int(ctg[a]) for a in range(len(rid))}
-        serialize(st.out("read_to_contig_map.msgpack"), r2c)
+        serialize(st.out("read_to_contig_map.json"), r2c)
         if not multi:
-            tmp = st.out("aln_set.msgpack.tmp")
+            tmp = st.out("aln_set.npz.tmp")
             with open(tmp, "wb") as fh:
                 fh.write(get_aln().to_bytes())
-            os.replace(tmp, st.out("aln_set.msgpack"))
+            os.replace(tmp, st.out("aln_set.npz"))
         return {"n_aligned": len(r2c)}
 
     track_stage.run(_track)
@@ -191,8 +189,7 @@ def _run_quiver(cfg: PipelineConfig) -> dict:
             het_skip_frac=cfg.polish.het_skip_frac,
             hmm_band=cfg.polish.hmm_band,
             score_batch=cfg.polish.score_batch,
-            splice_chunk=cfg.polish.splice_chunk,
-            use_pallas=None if cfg.polish.use_pallas else False)
+            splice_chunk=cfg.polish.splice_chunk)
         read_pvecs = None
         read_qtiers = None
         tier_tab = None

@@ -12,7 +12,7 @@ Outputs (under <out>/3-unzip/):
   all_h_ctg_ids                      — haplotig id list
   all_phased_reads                   — per-read (ctg, block, phase)
   h_ctg_placements.json              — haplotig placements on primaries
-  read_to_contig_map.msgpack         — read tracking (rr_hctg_track role)
+  read_to_contig_map.json         — read tracking (rr_hctg_track role)
 """
 from __future__ import annotations
 
@@ -38,8 +38,6 @@ logger = logging.getLogger(__name__)
 
 
 def run_unzip(cfg: PipelineConfig) -> dict:
-    from ..utils.compile_cache import enable as enable_compile_cache
-    enable_compile_cache()
     if cfg.profile_dir:  # jax.profiler device trace around the whole run
         from ..utils.profiling import device_trace
         with device_trace(cfg.profile_dir):
@@ -165,12 +163,12 @@ def _run_unzip(cfg: PipelineConfig) -> dict:
         if "a" not in _aln_cache:
             import time as _time
             if not multi:
-                blob = os.path.join(out, "1-align", "aln_set.msgpack")
+                blob = os.path.join(out, "1-align", "aln_set.npz")
                 probe = Stage(
                     out, "1-align",
                     inputs=[cfg.preads,
                             draft_stage.out("draft_p_ctg.fa")],
-                    outputs=["read_to_contig_map.msgpack"],
+                    outputs=["read_to_contig_map.json"],
                     resume=cfg.resume)
                 if cfg.resume and probe.is_done() \
                         and os.path.exists(blob):
@@ -253,7 +251,7 @@ def _run_unzip(cfg: PipelineConfig) -> dict:
 
     align_stage = Stage(out, "1-align",
                         inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
-                        outputs=["read_to_contig_map.msgpack"],
+                        outputs=["read_to_contig_map.json"],
                         resume=cfg.resume, sync=sync)
 
     def _track(st: Stage):
@@ -263,15 +261,15 @@ def _run_unzip(cfg: PipelineConfig) -> dict:
                                      int(cols["te"][a]),
                                      int(cols["st"][a])]
                for a in range(len(cols["rid"]))}
-        serialize(st.out("read_to_contig_map.msgpack"), r2c)
+        serialize(st.out("read_to_contig_map.json"), r2c)
         if not multi:
             # durable AlnSet: partial resumes reload instead of
             # re-aligning (see get_aln); written atomically so a kill
             # mid-write cannot leave a truncated blob that loads
-            tmp = st.out("aln_set.msgpack.tmp")
+            tmp = st.out("aln_set.npz.tmp")
             with open(tmp, "wb") as fh:
                 fh.write(get_aln().to_bytes())
-            os.replace(tmp, st.out("aln_set.msgpack"))
+            os.replace(tmp, st.out("aln_set.npz"))
         metrics.log("align", n_aligned=len(r2c), n_reads=len(preads))
         return {"n_aligned": len(r2c)}
 
@@ -310,7 +308,7 @@ def _run_unzip(cfg: PipelineConfig) -> dict:
         if phase_ops is None:
             # grouped batched device programs: a few dispatch/fetch
             # rounds for ALL contigs instead of ~6 round trips per
-            # contig (the serial loop was ~130 s of the 10 Mb run)
+            # contig
             from ..models.phaser import phase_contigs_batched
             phs = phase_contigs_batched(
                 aln, [int(c) for c in my_ctgs],
@@ -405,7 +403,7 @@ def _run_unzip(cfg: PipelineConfig) -> dict:
         # read placements come from the stage-1 track output, so a warm
         # hasm re-run does not need the aligner
         from ..io.serialize import deserialize
-        r2c = deserialize(align_stage.out("read_to_contig_map.msgpack"))
+        r2c = deserialize(align_stage.out("read_to_contig_map.json"))
         t_start = np.full(n_reads, -1, np.int64)
         t_end = np.full(n_reads, -1, np.int64)
         p_ctg_of = np.full(n_reads, -1, np.int64)

@@ -1,6 +1,6 @@
 """Sequence data plane: packed integer base tensors + ragged batching.
 
-TPU-first design: sequences live as dense ``int8`` arrays (A=0, C=1, G=2,
+Design: sequences live as dense ``int8`` arrays (A=0, C=1, G=2,
 T=3, N/pad=4) with explicit length vectors, never Python strings, so every
 downstream op (pileup scatter, match-matrix compare, DP wavefront) is a
 fixed-shape vector op.  Ragged read sets are carried as
@@ -63,7 +63,7 @@ def round_up(x: int, m: int) -> int:
 
 
 def bucket_length(n: int, minimum: int = 128) -> int:
-    """Power-of-two-ish padded length bucket (128-aligned for TPU lanes)."""
+    """Power-of-two-ish padded length bucket (128-aligned)."""
     b = max(minimum, 128)
     while b < n:
         b *= 2

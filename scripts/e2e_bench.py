@@ -1,16 +1,19 @@
 """End-to-end unzip+polish wall-clock bench (north-star metric 2).
 
 Simulates a diploid genome at the given scale, runs the full 3-unzip +
-4-polish pipeline, and prints one JSON line with stage wall-clocks and
-bases/s.  Run on the TPU host (kernels on chip) or under
-JAX_PLATFORMS=cpu for the host baseline.
+4-polish pipeline on the GPU, and prints the card's name and power limit,
+then one JSON line with stage wall-clocks, bases/s and truth QV.
+Refuses to run without a GPU.
 
-  python scripts/e2e_bench.py [genome_bp] [coverage]
+  python scripts/e2e_bench.py [genome_bp] [coverage] [uniform|n50|fungal]
+                              [--workdir DIR] [--keep] [--dp-scan]
 """
+import argparse
 import json
 import os
 import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -153,49 +156,16 @@ def _stage_metrics(out_dir: str) -> dict:
     return rows
 
 
-def main():
-    genome_bp = int(sys.argv[1]) if len(sys.argv) > 1 else 150_000
-    coverage = float(sys.argv[2]) if len(sys.argv) > 2 else 14.0
-    profile = sys.argv[3] if len(sys.argv) > 3 else \
-        os.environ.get("E2E_PROFILE", "uniform")
-
-    from falcon_unzip_tpu.config import PipelineConfig
+def simulate(d: str, genome_bp: int, coverage: float, profile: str):
+    """Write preads.fa, raw.fa and draft.fa for a simulated diploid into
+    d (preads at `coverage`, 2.2 kb, error-free; raw reads at coverage
+    + 4, 1.8 kb, 3% error; het rate 0.012).  Returns (true haplotypes,
+    contig lengths)."""
     from falcon_unzip_tpu.io.fasta import write_fasta
-    from falcon_unzip_tpu.pipeline.quiver import run_quiver
-    from falcon_unzip_tpu.pipeline.unzip import run_unzip
     from falcon_unzip_tpu.seq import decode
-    from falcon_unzip_tpu.utils import simulate as sim_mod
     from falcon_unzip_tpu.utils.simulate import make_diploid, simulate_reads
 
-    d = f"/tmp/e2e_bench_{genome_bp}" + (f"_{profile}"
-                                         if profile != "uniform" else "")
-    # sim identity: params + simulator source hash; a keep-dir whose
-    # fingerprint mismatches is discarded instead of silently scoring
-    # truth QV against the wrong haplotypes (ADVICE r3)
-    import hashlib
-    sim_src = hashlib.sha256(
-        open(sim_mod.__file__, "rb").read()).hexdigest()[:16]
-    fp = {"genome_bp": genome_bp, "coverage": coverage,
-          "profile": profile, "sim_src": sim_src, "v": 2}
-    fp_path = f"{d}/sim_params.json"
-    # E2E_KEEP=1: reuse an existing scratch dir — the sim is re-derived
-    # (seeded, for truth QV) but input files are not rewritten, so the
-    # drivers' Stage markers resume completed stages (mtime-fingerprint
-    # semantics).  Interrupted big runs continue instead of restarting.
-    keep = bool(os.environ.get("E2E_KEEP")) and os.path.isdir(d)
-    if keep:
-        try:
-            keep = json.load(open(fp_path)) == fp
-        except (OSError, ValueError):
-            keep = False
-    if not keep:
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        json.dump(fp, open(fp_path, "w"))
     lens = contig_lengths(genome_bp, profile)
-    n_ctg = len(lens)
-
-    t0 = time.perf_counter()
     pread_names, pread_seqs, raw_names, raw_seqs, drafts = [], [], [], [], []
     true_haps = []
     for ci, per in enumerate(lens):
@@ -211,11 +181,83 @@ def main():
         raw_names += [f"c{ci}/{n}" for n in rw.batch.names]
         raw_seqs += [rw.batch.to_str(i) for i in range(len(rw.batch))]
         drafts.append((f"draft{ci}", decode(dip.hap0)))
-    if not (keep and os.path.exists(f"{d}/preads.fa")):
-        write_fasta(f"{d}/preads.fa", zip(pread_names, pread_seqs))
-        write_fasta(f"{d}/raw.fa", zip(raw_names, raw_seqs))
-        write_fasta(f"{d}/draft.fa", drafts)
+    write_fasta(f"{d}/preads.fa", zip(pread_names, pread_seqs))
+    write_fasta(f"{d}/raw.fa", zip(raw_names, raw_seqs))
+    write_fasta(f"{d}/draft.fa", drafts)
+    return true_haps, lens
+
+
+def use_dp_scan() -> None:
+    """Run the banded DP as the XLA scan on every platform (for timing
+    the scan against the CUDA kernel on the GPU)."""
+    from falcon_unzip_tpu.ops import banded_align
+    banded_align.dp_for_platform = lambda platform: \
+        banded_align.banded_align_batch
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("genome_bp", type=int, nargs="?", default=150_000)
+    ap.add_argument("coverage", type=float, nargs="?", default=14.0)
+    ap.add_argument("profile", nargs="?", default="uniform",
+                    choices=("uniform", "n50", "fungal"))
+    ap.add_argument("--workdir", default="",
+                    help="scratch directory (default: under TMPDIR)")
+    ap.add_argument("--keep", action="store_true",
+                    help="reuse the workdir's inputs and finished stages")
+    ap.add_argument("--dp-scan", action="store_true",
+                    help="time the XLA scan in place of the CUDA DP kernel")
+    a = ap.parse_args()
+    genome_bp, coverage, profile = a.genome_bp, a.coverage, a.profile
+
+    from falcon_unzip_tpu.config import PipelineConfig
+    from falcon_unzip_tpu.pipeline.quiver import run_quiver
+    from falcon_unzip_tpu.pipeline.unzip import run_unzip
+    from falcon_unzip_tpu.utils import simulate as sim_mod
+    from falcon_unzip_tpu.utils.compile_cache import enable
+    from falcon_unzip_tpu.utils.device import (nvidia_smi_name_power,
+                                               require_gpu)
+    enable()
+    device = require_gpu()
+    card = nvidia_smi_name_power()
+    print(card, flush=True)
+    if a.dp_scan:
+        use_dp_scan()
+
+    d = a.workdir or os.path.join(tempfile.gettempdir(),
+                                  f"e2e_bench_{genome_bp}_{profile}")
+    # sim identity: params + simulator source hash; a kept dir whose
+    # fingerprint mismatches is discarded instead of silently scoring
+    # truth QV against the wrong haplotypes
+    import hashlib
+    sim_src = hashlib.sha256(
+        open(sim_mod.__file__, "rb").read()).hexdigest()[:16]
+    fp = {"genome_bp": genome_bp, "coverage": coverage,
+          "profile": profile, "sim_src": sim_src, "v": 2}
+    fp_path = f"{d}/sim_params.json"
+    # --keep: reuse an existing scratch dir — the sim is re-derived
+    # (seeded, for truth QV) but input files are not rewritten, so the
+    # drivers' Stage markers resume completed stages (mtime-fingerprint
+    # semantics).  Interrupted big runs continue instead of restarting.
+    keep = a.keep and os.path.isdir(d)
+    if keep:
+        try:
+            keep = json.load(open(fp_path)) == fp
+        except (OSError, ValueError):
+            keep = False
+    if not keep:
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        json.dump(fp, open(fp_path, "w"))
+
+    t0 = time.perf_counter()
+    if keep and os.path.exists(f"{d}/preads.fa"):
+        with tempfile.TemporaryDirectory() as td:  # truth only
+            true_haps, lens = simulate(td, genome_bp, coverage, profile)
+    else:
+        true_haps, lens = simulate(d, genome_bp, coverage, profile)
     sim_s = time.perf_counter() - t0
+    n_ctg = len(lens)
 
     cfg = PipelineConfig(preads=f"{d}/preads.fa", reads=f"{d}/raw.fa",
                          draft=f"{d}/draft.fa", out_dir=f"{d}/out")
@@ -226,9 +268,6 @@ def main():
     q = run_quiver(cfg)
     polish_s = time.perf_counter() - t0
 
-    import jax
-
-    from falcon_unzip_tpu.ops.banded_align import PALLAS_SHAPES
     total = unzip_s + polish_s
     qv_p, bd_p = _truth_qv(f"{d}/out/4-polish/cns_p_ctg.fasta", true_haps)
     qv_h, bd_h = _truth_qv(f"{d}/out/4-polish/cns_h_ctg.fasta", true_haps)
@@ -239,20 +278,19 @@ def main():
         "profile": profile,
         "contig_lens": lens if n_ctg <= 16 else None,
         "coverage": coverage,
+        "dp": "xla_scan" if a.dp_scan else "cuda_kernel",
         "stage_metrics": _stage_metrics(f"{d}/out"),
-        "platform": jax.devices()[0].platform,
-        "sim_s": round(sim_s, 1),
-        "unzip_s": round(unzip_s, 1),
-        "polish_s": round(polish_s, 1),
-        "total_s": round(total, 1),
-        "genome_bases_per_sec": round(genome_bp / total, 1),
+        "device": device,
+        "card": card,
+        "sim_s": sim_s,
+        "unzip_s": unzip_s,
+        "polish_s": polish_s,
+        "total_s": total,
+        "genome_bases_per_sec": genome_bp / total,
         "p_ctg": u["p_ctg"], "h_ctg": u["h_ctg"],
         "mean_qv": q.get("mean_qv"),
         "truth_qv_p": qv_p, "truth_qv_h": qv_h,
         "qv_breakdown_p": bd_p, "qv_breakdown_h": bd_h,
-        # each distinct Pallas shape = one serialized remote Mosaic
-        # compile; keep this SMALL (see models.aligner bucket notes)
-        "n_pallas_shapes": len(PALLAS_SHAPES),
     }))
 
 

@@ -1,5 +1,7 @@
 """Split the 1-align stage wall into seed / DP dispatch / collect /
-host post (anchor_trim + tag emission) at a given genome scale.
+host post (anchor_trim + tag emission) at a given genome scale, on the
+GPU (refuses to run without one; prints the card's name and power limit
+and names the device in its output line).
 
   python scripts/profile_align.py [genome_bp] [coverage]
 """
@@ -15,6 +17,13 @@ import numpy as np
 def main():
     genome_bp = int(sys.argv[1]) if len(sys.argv) > 1 else 300_000
     coverage = float(sys.argv[2]) if len(sys.argv) > 2 else 14.0
+    from falcon_unzip_tpu.utils.compile_cache import enable
+    from falcon_unzip_tpu.utils.device import (nvidia_smi_name_power,
+                                               require_gpu)
+    enable()
+    device = require_gpu()
+    card = nvidia_smi_name_power()
+    print(card, flush=True)
     from falcon_unzip_tpu.models.aligner import (AlignerConfig,
                                                  ReadToContigAligner)
     from falcon_unzip_tpu.utils.simulate import make_diploid, simulate_reads
@@ -75,7 +84,8 @@ def main():
     wall = time.time() - t0
     other = wall - sum(times.values())
     times["other"] = other if other >= 0 else float("nan")  # nan = nested
-    print({"genome_bp": genome_bp, "n_reads": len(reads),
+    print({"device": device, "card": card,
+           "genome_bp": genome_bp, "n_reads": len(reads),
            "n_aligned": len(aln), "index_s": round(t_index, 2),
            "align_wall_s": round(wall, 2),
            **{k: round(v, 2) for k, v in times.items()}})

@@ -7,7 +7,7 @@ only the interconnect constant changes):
 
 1. multiprocess weak scaling (the meaningful one): N OS processes, each
    pinned to a disjoint CPU-core set and owning one virtual device, join
-   a jax.distributed world (GRPC = the DCN stand-in) and run the sharded
+   a jax.distributed world (GRPC = the cross-host network stand-in) and run the sharded
    phase step on host-sharded input built with
    make_array_from_process_local_data — the exact multi-host pipeline
    path (parallel.sharding + pipeline drivers).

@@ -84,7 +84,7 @@ def _mk_bam(tmp_path, n=12):
 
 def test_select_reads_cli(tmp_path, capsys):
     path = _mk_bam(tmp_path)
-    mp = str(tmp_path / "map.msgpack")
+    mp = str(tmp_path / "map.json")
     serialize(mp, {f"r{i}": i % 2 for i in range(8)})
     pattern = str(tmp_path / "part_{}.bam")
     assert main(["select-reads", "--bam", path, "--map", mp,

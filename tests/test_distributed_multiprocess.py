@@ -2,7 +2,7 @@
 multiprocess CPU so no pod is needed).
 
 Two OS processes each own 2 virtual CPU devices and join one
-jax.distributed world (GRPC coordinator = the DCN stand-in); a psum over
+jax.distributed world (GRPC coordinator = the cross-host network stand-in); a psum over
 the global 4-device mesh and the sharded pileup must see ALL processes'
 data.  This exercises the cross-host path that single-process mesh tests
 cannot (process coordination, global device enumeration, cross-process

@@ -47,7 +47,7 @@ def _mk_bam(n=25, seed=3):
             cigar=[(L // 2, 0), (3, 1), (L - L // 2, 0)],
             seq=random_genome(L, seed + i),
             qual=rng.integers(5, 45, size=L).astype(np.uint8)))
-    return bl.BamFile(text="@HD\tVN:1.6\n@PG\tID:fu-tpu\n",
+    return bl.BamFile(text="@HD\tVN:1.6\n@PG\tID:fu\n",
                       refs=[("c0", 9000), ("c1", 7000), ("c2", 5000)],
                       records=recs)
 

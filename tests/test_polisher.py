@@ -148,7 +148,7 @@ def test_arrow_matches_window_oracle():
 
     st = MP._WinState(cns=draft.copy(), votes=np.zeros((48, 9, 5), np.int32),
                       segs=reads, active=True, cand=list(cand))
-    pol = Polisher(PolisherConfig(arrow_rounds=8, use_pallas=False),
+    pol = Polisher(PolisherConfig(arrow_rounds=8),
                    scorer=FullScorer())
     pol._refine_windows([st])
     assert np.array_equal(st.cns, ref)
